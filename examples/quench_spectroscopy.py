@@ -25,10 +25,6 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from quantum_simulator_tpu.utils.preflight import require_device_or_cpu
-
-require_device_or_cpu()
-
 import numpy as np  # noqa: E402
 
 from quantum_simulator_tpu.correlators import mps_two_point_correlator  # noqa: E402

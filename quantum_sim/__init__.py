@@ -3,6 +3,6 @@
 Existing code written against the reference package layout
 (``quantum_sim.engine.*`` / ``quantum_sim.core.*``; see
 ``/root/reference/quantum_sim``) imports unchanged and runs on the
-TPU-native engine. Each submodule re-exports the corresponding
+accelerator-native engine. Each submodule re-exports the corresponding
 ``quantum_simulator_tpu`` module.
 """

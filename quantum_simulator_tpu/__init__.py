@@ -1,9 +1,9 @@
-"""quantum_simulator_tpu — TPU-native quantum circuit simulation framework.
+"""quantum_simulator_tpu — quantum circuit simulation framework on JAX/XLA.
 
 A ground-up JAX/XLA rebuild of the capabilities of the reference
 Quantum-Simulator (pure-NumPy statevector engine, noise channels,
 measurement, analysis, debugger, optimizer, QEC, algorithms, bridge API),
-re-architected for TPU: compiled circuit programs, vmapped Monte-Carlo
+re-architected for GPUs: compiled circuit programs, vmapped Monte-Carlo
 trajectories, a composed group-matmul executor, and mesh-sharded
 statevectors.
 """

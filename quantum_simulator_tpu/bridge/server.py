@@ -6,7 +6,7 @@ get_circuit, set_circuit, add_gate, clear_circuit, run, get_state,
 get_result, set_noise, clear_noise, get_analysis, sweep_parameter;
 reflection dispatch to ``_cmd_<action>``; multi-client newline framing).
 
-TPU-native differences: the event loop is a plain ``selectors`` thread (no
+Design differences: the event loop is a plain ``selectors`` thread (no
 Qt); ``sweep_parameter`` evaluates all trials of a sweep point as one
 batched trajectory launch instead of a Python loop per trial.
 """
@@ -19,6 +19,7 @@ import socket
 import threading
 from types import SimpleNamespace
 
+import jax
 import numpy as np
 
 from .protocol import DEFAULT_HOST, DEFAULT_PORT, BridgeMessage
@@ -324,7 +325,8 @@ class BridgeCommandHandler:
             states = sim.trajectory_states(
                 self._circuit, n_trials,
                 seed=int(rng.integers(0, 2**63)))
-            overlaps = jnp.einsum("d,td->t", jnp.conj(ideal_dev), states)
+            overlaps = jnp.einsum("d,td->t", jnp.conj(ideal_dev), states,
+                                  precision=jax.lax.Precision.HIGHEST)
             fids = np.asarray(jnp.abs(overlaps) ** 2, dtype=np.float64)
             norms = np.asarray(jnp.sum(jnp.abs(states) ** 2, axis=1),
                                dtype=np.float64)

@@ -5,7 +5,7 @@ Parity target: ``/root/reference/quantum_sim/engine/circuit.py:9-173``
 ``compute_layers`` / ``gate_to_layer_map`` layer definition, structure hash,
 JSON serde version "1.0" with ``initial_states`` omitted when all zero).
 
-TPU-native difference: ``circuit_hash()`` is the **jit compile-cache key** —
+Design difference: ``circuit_hash()`` is the **jit compile-cache key** —
 a circuit with the same structure but different gate parameters re-uses the
 same lowered XLA program (parameters are a runtime vector). The reference
 uses the hash only to invalidate its fidelity reference

@@ -5,7 +5,7 @@ the information-theoretic wall for amplitude simulation.  Circuits made
 of Clifford gates (H, S, S_DAG, X, Y, Z, CNOT, CZ, SWAP) evolve stabilizer
 states, which the Aaronson-Gottesman CHP tableau tracks in O(n^2) bits:
 2n generator rows (n destabilizers + n stabilizers) of X/Z bit vectors
-plus a sign.  This module implements that representation TPU-natively:
+plus a sign.  This module implements that representation on the device:
 
 * a gate is a handful of column XOR/AND updates over all 2n rows at
   once (pure elementwise int32 ops on (2n, n) tensors);

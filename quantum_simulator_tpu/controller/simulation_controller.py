@@ -60,7 +60,7 @@ class SimulationController:
         if thread is not None:
             thread.join(timeout)
             if thread.is_alive():
-                # join timed out (e.g. a 20-60s first TPU compile in
+                # join timed out (e.g. a long first device compile in
                 # flight): keep the handle, or is_running would lie and
                 # _start would un-cancel this worker with a second one
                 return

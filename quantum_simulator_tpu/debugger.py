@@ -6,7 +6,7 @@ breakpoints + run-to-breakpoint, N-trial noise impact with per-qubit
 reduced-rho Uhlmann fidelities, noise attribution via fidelity-gap deltas
 with recovery clamping and ``no_measurable_loss``, top-10 state diff).
 
-TPU-native difference: the reference re-simulates the circuit gate by gate
+Design difference: the reference re-simulates the circuit gate by gate
 per trial in Python (``debugger.py:301-330``). Here one device launch
 produces the full (trials, columns+1, 2^n) noisy tensor plus the ideal
 column stack; fidelity matrices, gaps, and all single-qubit reduced density

@@ -17,7 +17,7 @@ quotes for exact DM simulators at 8 GiB hosts, ``README.md:211-218``).
 Left/right operator application reuses the statevector kernel: U acts on
 rho's row index as a vmap over columns, and conj(U) on the column index
 as a vmap over rows — every contraction is the same segmented-einsum
-MXU path as the pure-state engine.
+matmul path as the pure-state engine.
 """
 
 from __future__ import annotations
@@ -73,7 +73,8 @@ def _dm_body(program: prog.CircuitProgram, channels_for, params, dtype):
     dim = 1 << n
     idx = program.initial_index
     one_hot = jnp.zeros(dim, dtype=dtype).at[idx].set(1.0)
-    rho = jnp.outer(one_hot, jnp.conj(one_hot))
+    rho = jnp.einsum("i,j->ij", one_hot, jnp.conj(one_hot),
+                     precision=jax.lax.Precision.HIGHEST)
     for op in program.ops:
         if op.cphase_value is not None:
             # Matrix-less controlled phase (MCZ_k, k > 10): D rho D^dag
@@ -208,12 +209,10 @@ class SuperopDensityResult:
     quantities (probabilities, trace, <Z>, sampling) plus purity — the
     full 2^n x 2^n rho would be a multi-GiB host copy and raises."""
 
-    def __init__(self, num_qubits: int, state, planar: bool,
-                 entry_format=None):
+    def __init__(self, num_qubits: int, state, planar: bool):
         self.num_qubits = num_qubits
         self._state = state
         self._planar = planar
-        self._fmt = entry_format
         self._diag = None
 
     def _diagonal(self) -> np.ndarray:
@@ -237,13 +236,7 @@ class SuperopDensityResult:
         def body(x, *cs):
             return x[(slice(None),) + cs] if planar else x[cs]
 
-        kw = {}
-        if self._fmt is not None:
-            from jax.experimental.layout import Format
-
-            kw = {"in_shardings": (self._fmt,)
-                  + tuple(Format() for _ in coords)}
-        out = np.asarray(jax.jit(body, **kw)(self._state, *coords))
+        out = np.asarray(jax.jit(body)(self._state, *coords))
         self._diag = (out[0] + 1j * out[1]) if planar \
             else out.astype(np.complex128)
         return self._diag
@@ -357,25 +350,22 @@ class DensityMatrixSimulator:
         cliff this returns the full DensityMatrixResult (rho reshaped
         from the 2n-qubit vector); at 2n >= 30 it runs the chunked
         in-place executor and returns a SuperopDensityResult."""
-        from .ops.bigstate import auto_chunks
+        from .ops.bigstate import is_huge_state
 
         dtype = dtype or CONFIG.dtype
         n = circuit.num_qubits
         program = prog.compile_circuit(circuit)
         program2 = superop_program(program, self.noise_model)
         params = jnp.asarray(program2.initial_params)
-        # Route on the PLANAR footprint: even when vec(rho) is all-real
-        # (whole-state-able), the dense route below materializes the
-        # complex 2^2n vector + an eager reshape — measured 16.25 GiB at
-        # n=15 (258 MB past HBM). The huge route never goes complex.
-        if auto_chunks(2 * n) > 1 and jax.default_backend() == "tpu":
-            from .ops.bigstate import _huge_state_formats, huge_forward_fn
+        # Route like Simulator.run on the 2n-qubit vector's size: the
+        # dense route below materializes the complex 2^2n vector plus an
+        # eager reshape, while the huge route never goes complex.
+        if is_huge_state(2 * n):
+            from .ops.bigstate import huge_forward_fn
 
             fn, planar = huge_forward_fn(program2, dtype)
             x, _marg = fn(params)
-            _, fmt_out = _huge_state_formats(program2, dtype)
-            return SuperopDensityResult(n, x, planar,
-                                        entry_format=fmt_out)
+            return SuperopDensityResult(n, x, planar)
         vec = prog.forward_fn(program2, dtype)(params)
         return DensityMatrixResult(
             num_qubits=n, device_rho=vec.reshape(1 << n, 1 << n))

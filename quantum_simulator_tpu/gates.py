@@ -4,7 +4,7 @@ Parity target: ``/root/reference/quantum_sim/engine/gates.py:11-134`` (GateType
 enum, frozen GateDefinition, the 9 fixed single-qubit gates, 5 parameterized
 gates, and the 5 fixed multi-qubit gates).
 
-TPU-native difference: every parameterized gate also has a **traceable JAX
+Design difference: every parameterized gate also has a **traceable JAX
 builder** (``jnp_*``) so a whole circuit lowers to one XLA program with the
 parameter vector as a runtime argument — gradients flow through gate matrices
 via ``jax.grad`` (the reference can only do parameter-shift re-simulation).

@@ -361,7 +361,7 @@ class AboutDialog(QDialog):
         self.setWindowTitle("About")
         layout = QVBoxLayout(self)
         layout.addWidget(QLabel(
-            "<h3>Quantum Simulator (TPU-native)</h3>"
+            "<h3>Quantum Simulator (JAX/XLA)</h3>"
             "<p>Statevector simulation compiled to XLA with batched "
             "Monte-Carlo noise trajectories, a group-matmul executor, and "
             "mesh-sharded states.</p>"))

@@ -68,7 +68,7 @@ class MainWindow(QMainWindow):
 
     def __init__(self, config: AppConfig | None = None):
         super().__init__()
-        self.setWindowTitle("Quantum Simulator (TPU)")
+        self.setWindowTitle("Quantum Simulator")
         self.config = config or AppConfig.load()
         self.resize(self.config.window_width, self.config.window_height)
 

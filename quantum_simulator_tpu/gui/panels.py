@@ -426,8 +426,12 @@ class ResourceMonitorPanel(_CanvasPanel):
         self._timer = QTimer(self)
         self._timer.timeout.connect(self._tick)
         self._timer.start(1000)
-        rows = self.model.comparison_table()
-        html = ["<b>Max qubits in 16 GiB (one TPU v5e chip):</b>"]
+        from ..config import device_memory_budget
+
+        budget = device_memory_budget()
+        rows = self.model.comparison_table(budget)
+        html = [f"<b>Max qubits in {budget / 2**30:.1f} GiB (the device "
+                "memory budget):</b>"]
         for r in rows:
             html.append(f"{r['simulator']}: {r['max_qubits']} qubits "
                         f"({r['note']})")

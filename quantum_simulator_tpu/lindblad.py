@@ -11,14 +11,14 @@ generator those channels discretize: amplitude damping is the
 circuit with per-gate channels converges to this equation as the step
 size shrinks.
 
-TPU-native design:
+Design:
 
 * The right-hand side is MATRIX-FREE: H is a Pauli-term list (the same
   ``(coeff, pauli_string, qubits)`` tuples as ``models/trotter.py`` and
   the optimizer Hamiltonians), and every term/jump applies to rho
   through the statevector kernel's left/right contractions — the same
   vmapped ``apply_gate`` path as ``density.py``, so each application is
-  a batched MXU contraction, never a 4^n x 4^n Liouvillian matrix.
+  a batched matmul contraction, never a 4^n x 4^n Liouvillian matrix.
 * Integration is classical RK4 with a static step count under ONE
   jitted ``lax.scan``; the whole evolution (including every recorded
   observable) compiles to a single device program.  RK4's O(dt^4) local

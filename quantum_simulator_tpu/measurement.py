@@ -5,7 +5,7 @@ Parity target: ``/root/reference/quantum_sim/engine/measurement.py:12-129``
 probability distribution; "distribution" readout mode transforms probs
 BEFORE sampling, "shot" mode corrupts bitstrings AFTER).
 
-TPU-native differences: the basis rotation runs as one jitted device program
+Design differences: the basis rotation runs as one jitted device program
 (cached per (n, basis)); shot-mode corruption is a single vectorized RNG
 draw over all shots; a device-side categorical sampler is provided for
 at-scale sampling where the 2^n distribution should never leave HBM.

@@ -5,7 +5,7 @@ Kraus channels, stochastic per-qubit Kraus selection after every gate,
 per-bit readout confusion matrix with "shot" and "distribution" modes,
 global + per-gate channel lists, dict serde with the same type names).
 
-TPU-native differences:
+Design differences:
 
 * every channel exposes ``kraus_stack()`` — a stacked ``(m, 2, 2)`` array
   consumed by the compiled trajectory programs (``ops/program.py``), where

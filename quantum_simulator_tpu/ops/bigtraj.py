@@ -6,8 +6,8 @@ target qubits, compute branch probabilities ``p_m = ||K_m psi||^2``, draw
 one branch, keep it, renormalize. The reference loops this per shot on a
 NumPy state capped at n=16; ``ops/plan.group_trajectory_body`` already
 batches it on device for n <= 29. This module extends it to the n >= 30
-single-chip regime, where even ONE whole-state complex temporary exceeds
-HBM, with a TPU-native schedule built around two ideas:
+single-device regime, where whole-state complex temporaries are what the
+memory budget cannot afford, with a schedule built around two ideas:
 
 * **Draw folding.** The branch probabilities only need the reduced density
   matrix rho of the gate's target qubits (``p_m = tr(K_m rho K_m^+)``), and
@@ -174,7 +174,8 @@ def _rho_from(blk: jnp.ndarray, lead: int, tbits, planar: bool):
 def _valid_chunk_axis(shape: tuple[int, ...], involved: set[int]
                       ) -> int | None:
     """Chunkable axis: free of ``involved``, non-minor (minor-axis slices
-    pad 8x on TPU tiling), and wide enough for >= 4 chunks."""
+    are strided; see ``bigstate._chunk_axis``), and wide enough for >= 4
+    chunks."""
     ax = _chunk_axis(shape, involved)
     if ax is None or ax == len(shape) - 1 or shape[ax] < 4:
         return None
@@ -332,11 +333,9 @@ def _make_applier(layout: GroupLayout, op, kind: str, planar: bool):
 
 def _axis_applier(layout: GroupLayout, targets, planar: bool):
     """-> (make(U) -> chunk_fn, involved axes) for targets in one axis:
-    embed into the S x S axis operator, ONE einsum over that axis.
-    Measured on-chip vs the bit-level contraction below: the embedded
-    matmul wins (1.9 vs 3.1 s/trajectory at n=30 depth-1) — the MXU
-    eats the 128x128 operator faster than XLA handles interior-bit
-    contractions, despite ~100x the paper FLOPs."""
+    embed into the S x S axis operator, ONE einsum over that axis — a
+    well-shaped matmul, where the bit-level contraction below pays
+    transposes for interior bits despite ~100x fewer paper FLOPs."""
     ax = layout.axis_of(targets[0])
     qubits = sorted(targets, key=lambda q: layout.pos_in_axis(q))
     pos = tuple(layout.pos_in_axis(q) for q in qubits)
@@ -413,9 +412,8 @@ def _bits_applier(layout: GroupLayout, targets, planar: bool):
     """-> (make(U) -> chunk_fn, involved axes): apply a 2^k gate by
     contracting its rank-2k tensor directly against the k exposed state
     bits — the fallback for gates spanning 3 groups (no axis/cross
-    form). Measured SLOWER than the embedded forms for the common cases
-    (XLA pays transposes for interior-bit contractions), so it only
-    serves shapes the others cannot."""
+    form). XLA pays transposes for interior-bit contractions, so it
+    only serves shapes the embedded forms cannot."""
     tbits = tuple((layout.axis_of(q), layout.pos_in_axis(q))
                   for q in targets)
     k = len(targets)
@@ -888,11 +886,10 @@ def apply_basis_rotation(x: jnp.ndarray, basis: str, layout: GroupLayout,
 # Donation chain: init -> noisy apply -> stats (the n >= 30 dispatch plan)
 # ---------------------------------------------------------------------------
 #
-# Same measured rationale as the ideal chain in ``bigstate.py``: a fused
-# program RETURNING the state doubles peak HBM, and a non-donated second
-# dispatch consuming it OOMs on argument staging. The state is donated
-# through every dispatch, with AUTO layouts on TPU so XLA never inserts a
-# whole-state relayout copy of the donated input.
+# Same rationale as the ideal chain in ``bigstate.py``: a fused program
+# RETURNING the state doubles peak memory, and a non-donated second
+# dispatch consuming it stages a second copy. The state is donated
+# through every dispatch, in the default layout (see ``bigstate.py``).
 
 _TRAJ_CACHE: dict[tuple, object] = {}
 
@@ -910,44 +907,8 @@ def _traj_state_shape(program, planar: bool) -> tuple[int, ...]:
     return ((2,) + shape) if planar else shape
 
 
-def _traj_apply_raw(program, noise_model, dtype):
-    """Cached AOT-compiled ``(params, key, x) -> x`` with AUTO layouts and
-    the state donated (TPU). The basis-state first-rho shortcut applies:
-    the chain always feeds the freshly initialized basis state."""
-    from jax.experimental.layout import Format, Layout
-
-    planar = not trajectory_is_real(program, noise_model)
-    key_t = ("traj-apply", program.compile_key, noise_model.spec_key(),
-             str(dtype))
-    cached = _TRAJ_CACHE.get(key_t)
-    if cached is None:
-        shape = _traj_state_shape(program, planar)
-        auto = Format(Layout.AUTO)
-        body = _evolve_body(program, noise_model)
-        jitted = jax.jit(
-            lambda params, key, x: body(params, key, x),
-            in_shardings=(Format(), Format(), auto), out_shardings=auto,
-            donate_argnums=(2,))
-        cached = jitted.lower(
-            jax.ShapeDtypeStruct((len(program.initial_params),),
-                                 jnp.float32),
-            jax.ShapeDtypeStruct((2,), jnp.uint32),
-            jax.ShapeDtypeStruct(shape, jnp.float32)).compile()
-        _traj_cache_put(key_t, cached)
-    return cached
-
-
-def _traj_formats(program, noise_model, dtype):
-    """(entry, exit) state formats of the noisy apply program (TPU only)."""
-    if jax.default_backend() != "tpu":
-        return None, None
-    compiled = _traj_apply_raw(program, noise_model, dtype)
-    (_, _, fmt_x), _ = compiled.input_formats
-    return fmt_x, compiled.output_formats
-
-
 def _traj_init_fn(program, noise_model, dtype):
-    """Cached jitted ``f() -> basis state`` in the apply entry layout."""
+    """Cached jitted ``f() -> basis state``."""
     planar = not trajectory_is_real(program, noise_model)
     key_t = ("traj-init", program.compile_key, noise_model.spec_key(),
              str(dtype))
@@ -960,22 +921,15 @@ def _traj_init_fn(program, noise_model, dtype):
         else:
             body = lambda: _real_basis_state(  # noqa: E731
                 layout, program.initial_index)
-        fmt_in, _ = _traj_formats(program, noise_model, dtype)
-        kw = {"out_shardings": fmt_in} if fmt_in is not None else {}
-        cached = _traj_cache_put(key_t, jax.jit(body, **kw))
+        cached = _traj_cache_put(key_t, jax.jit(body))
     return cached
 
 
 def _traj_apply_fn(program, noise_model, dtype):
-    if jax.default_backend() == "tpu":
-        compiled = _traj_apply_raw(program, noise_model, dtype)
-
-        def run(params, key, x):
-            return compiled(jnp.asarray(params, jnp.float32),
-                            jnp.asarray(key, jnp.uint32), x)
-
-        return run
-    key_t = ("traj-apply-cpu", program.compile_key, noise_model.spec_key(),
+    """Cached jitted ``(params, key, x) -> x`` with the state donated. The
+    basis-state first-rho shortcut applies: the chain always feeds the
+    freshly initialized basis state."""
+    key_t = ("traj-apply", program.compile_key, noise_model.spec_key(),
              str(dtype))
     cached = _TRAJ_CACHE.get(key_t)
     if cached is None:
@@ -1059,29 +1013,10 @@ def _traj_stats_fn(program, noise_model, shots: int, dtype,
             outs.insert(0, thread)
         return tuple(outs)
 
-    fmt_in, fmt_out = _traj_formats(program, noise_model, dtype)
-    kw = {}
-    if fmt_out is not None:
-        from jax.experimental.layout import Format
-
-        layout = GroupLayout.for_qubits(program.num_qubits)
-        n_ax = len(layout.axis_sizes)
-        out_f = []
-        if threads_state:
-            out_f.append(fmt_out)
-        if keep_state:
-            out_f.append(fmt_out)
-            out_f.append(tuple(Format() for _ in range(n_ax)))
-        if want_grams:
-            out_f.append(tuple((Format(), Format()) for _ in range(n_ax)))
-        if shots > 0:
-            out_f.append(Format())
-        in_f = (fmt_out, Format()) if shots > 0 else (fmt_out,)
-        kw = {"in_shardings": in_f, "out_shardings": tuple(out_f)}
     if shots > 0:
-        fn = jax.jit(lambda x, key: body(x, key), donate_argnums=(0,), **kw)
+        fn = jax.jit(lambda x, key: body(x, key), donate_argnums=(0,))
     else:
-        fn = jax.jit(lambda x: body(x), donate_argnums=(0,), **kw)
+        fn = jax.jit(lambda x: body(x), donate_argnums=(0,))
     return _traj_cache_put(key_t, fn), threads_state
 
 

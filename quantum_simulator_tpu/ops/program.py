@@ -1,6 +1,7 @@
 """Circuit → compiled XLA program.
 
-This is the TPU-native replacement for the reference's interpreted gate walk
+This is the accelerator-native replacement for the reference's
+interpreted gate walk
 (``/root/reference/quantum_sim/engine/simulator.py:55-68``): instead of
 re-dispatching Python per gate per run, a circuit compiles ONCE per
 *structure* into a jitted function
@@ -31,7 +32,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..config import CONFIG
+from ..config import CONFIG, on_gpu
 from ..gates import GateType
 from ..registry import GateRegistry
 from .apply import (apply_cphase, apply_gate, basis_state_index,
@@ -326,20 +327,21 @@ def clear_compile_cache():
     _CACHE.clear()
 
 
-# The group-matmul executor is the forward path on TPU at every n: it
-# matches the per-gate einsum program below ~12 qubits and beats it above
-# (n=14 depth-20: 2.0 vs 3.5 ms; n=16 depth-40: 3.9 vs 18.5 ms measured),
-# and the einsum program stops compiling in reasonable time at n >= 20 on
-# remote-compile runtimes. Trajectory/steps bodies still switch at this
-# threshold (noise between gates prevents composition; per-gate einsums
-# batch better under vmap at small n).
-_PLAN_EXECUTOR_MIN_QUBITS = 19
+# Routes on the GPU (config.on_gpu; the CPU keeps the per-gate programs
+# everywhere, which its tests are written against). The forward and
+# evolve programs take the group-matmul executor at every n; trajectory,
+# monitored and steps bodies take the group/splice bodies from
+# _PLAN_EXECUTOR_MIN_QUBITS up. Both choices come from H100 timings
+# (scripts/route_timings.py; numbers in PERF.md): the plan forward won at
+# every width timed (n = 8..20), the splice bodies at every width timed
+# (n = 12, 16), and 12 is the smallest width timed.
+_PLAN_EXECUTOR_MIN_QUBITS = 12
 
 
 def forward_fn(program: CircuitProgram, dtype=None) -> Callable:
     """jitted ``f(params) -> state``."""
     dtype = dtype or CONFIG.dtype
-    if jax.default_backend() == "tpu":
+    if on_gpu():
         from .plan import group_forward_fn
 
         return group_forward_fn(program, dtype)
@@ -357,15 +359,13 @@ def forward_body(program: CircuitProgram, params, dtype=None):
 def evolve_fn(program: CircuitProgram, dtype=None) -> Callable:
     """jitted ``f(state, params) -> state`` applying the program to a
     PROVIDED state (rather than the circuit's initial basis state) — used
-    for chained benchmarking and for composing circuits. Routes through
-    the group executor on TPU like forward_fn (the per-gate einsum body
-    stops compiling in reasonable time at n >= 20 on remote-compile
-    runtimes)."""
+    for chained benchmarking and for composing circuits. Routes like
+    forward_fn."""
     dtype = dtype or CONFIG.dtype
-    on_tpu = jax.default_backend() == "tpu"
-    key = ("evolve", program.compile_key, str(dtype), on_tpu)
+    use_plan = on_gpu()
+    key = ("evolve", program.compile_key, str(dtype), use_plan)
 
-    if on_tpu:
+    if use_plan:
         from .plan import group_evolve_body
 
         return _cache_get(key, lambda: jax.jit(
@@ -419,8 +419,7 @@ def steps_fn(program: CircuitProgram, dtype=None) -> Callable:
 
 
 def _use_group_path(program: CircuitProgram) -> bool:
-    return (program.num_qubits >= _PLAN_EXECUTOR_MIN_QUBITS
-            and jax.default_backend() == "tpu")
+    return program.num_qubits >= _PLAN_EXECUTOR_MIN_QUBITS and on_gpu()
 
 
 def trajectory_fn(program: CircuitProgram, noise_model, dtype=None,
@@ -433,8 +432,7 @@ def trajectory_fn(program: CircuitProgram, noise_model, dtype=None,
            str(dtype), record_columns, _use_group_path(program))
     if CONFIG.interactive and not record_columns and key not in _CACHE:
         # Edit-hot noisy rerun: the skeleton executor serves EVERY n
-        # (the per-gate einsum program below recompiles per structure
-        # and takes minutes at n >= 14 on remote-compile runtimes).
+        # (the per-gate einsum program below recompiles per structure).
         from .unitary_traj import interactive_trajectory_fn
 
         fn = interactive_trajectory_fn(program, noise_model, dtype)
@@ -456,7 +454,7 @@ def monitored_trajectories_fn(program: CircuitProgram, noise_model,
     — T monitored trajectories (mid-circuit collapse at the static
     ``(op_position, qubit)`` events, optional stochastic noise) in one
     vmapped launch.  Below the plan threshold this is the per-gate
-    einsum body; at n >= 19 on TPU the collapse runs as spliced
+    einsum body; from the threshold up on the GPU the collapse runs as spliced
     projectors through the group plan (``ops/monomial_traj``) whenever
     the noise channels are monomial (always true for the reference
     channel family and for noise-free monitored circuits)."""
@@ -477,7 +475,8 @@ def monitored_trajectories_fn(program: CircuitProgram, noise_model,
                 "monitored group path needs monomial Kraus channels "
                 "(the reference channel family); this noise model has "
                 "a non-monomial custom channel — use MPSSimulator / "
-                "Clifford monitored engines or n <= 18")
+                "Clifford monitored engines, or a width below "
+                f"{_PLAN_EXECUTOR_MIN_QUBITS}")
         key = ("monitored-group", program.compile_key, spec, str(dtype),
                tuple(events))
         return _cache_get(key, lambda: jax.jit(jax.vmap(
@@ -511,7 +510,7 @@ def batched_trajectories_fn(program: CircuitProgram, noise_model,
         sfn = interactive_trajectory_fn(program, noise_model, dtype)
         if sfn is not None:
             # Edit-hot batches loop the skeleton executor per key
-            # (~0.4 s each at n=16) instead of compiling a fused batch
+            # instead of compiling a fused batch
             # program for a structure the user is about to edit again.
             # NOT cached under the structure key (see trajectory_fn).
             import jax.numpy as _jnp
@@ -531,6 +530,40 @@ def batched_trajectories_fn(program: CircuitProgram, noise_model,
     return _cache_get(key, build)
 
 
+def forward_route(program: CircuitProgram) -> str:
+    """Which executor ``forward_fn`` runs for this program: ``"plan"``
+    (the group-matmul executor) or ``"per-gate"``."""
+    return "plan" if on_gpu() else "per-gate"
+
+
+def trajectory_route(program: CircuitProgram, noise_model,
+                     record_columns: bool = False) -> str:
+    """Which body ``trajectory_fn`` / ``batched_trajectories_fn`` run:
+    ``"per-gate"`` below the plan threshold (or off the GPU), else one
+    of ``"unitary-splice"``, ``"monomial-splice"``, ``"fold"``,
+    ``"group-per-gate"`` (see ``_group_traj_kind``)."""
+    if not _use_group_path(program):
+        return "per-gate"
+    return _group_traj_kind(program, noise_model, record_columns)
+
+
+def _group_traj_kind(program: CircuitProgram, noise_model,
+                     record_columns: bool) -> str:
+    from .bigtraj import fold_supported
+    from .monomial_traj import monomial_insert_supported
+    from .unitary_traj import unitary_insert_supported
+
+    if record_columns:
+        return "group-per-gate"
+    if unitary_insert_supported(program, noise_model):
+        return "unitary-splice"
+    if monomial_insert_supported(program, noise_model):
+        return "monomial-splice"
+    if fold_supported(program):
+        return "fold"
+    return "group-per-gate"
+
+
 def _group_traj_body(program: CircuitProgram, noise_model, dtype,
                      record_columns: bool) -> Callable:
     """Group-path trajectory body selector, fastest applicable first:
@@ -547,26 +580,19 @@ def _group_traj_body(program: CircuitProgram, noise_model, dtype,
        applier;
     4. otherwise the per-gate ``plan.group_trajectory_body`` (which
        also serves snapshot recording and >3-target dense gates)."""
-    from .bigtraj import fold_supported, fold_trajectory_body
-    from .monomial_traj import (
-        monomial_insert_supported,
-        monomial_trajectory_body,
-    )
+    from .bigtraj import fold_trajectory_body
+    from .monomial_traj import monomial_trajectory_body
     from .plan import group_trajectory_body
-    from .unitary_traj import (
-        unitary_insert_supported,
-        unitary_insert_trajectory_body,
-    )
+    from .unitary_traj import unitary_insert_trajectory_body
 
-    if not record_columns and unitary_insert_supported(program,
-                                                       noise_model):
+    kind = _group_traj_kind(program, noise_model, record_columns)
+    if kind == "unitary-splice":
         return lambda params, k: unitary_insert_trajectory_body(
             program, noise_model, params, k, dtype)
-    if not record_columns and monomial_insert_supported(program,
-                                                        noise_model):
+    if kind == "monomial-splice":
         return lambda params, k: monomial_trajectory_body(
             program, noise_model, params, k, dtype)
-    if not record_columns and fold_supported(program):
+    if kind == "fold":
         return lambda params, k: fold_trajectory_body(
             program, noise_model, params, k, dtype)
     return lambda params, k: group_trajectory_body(

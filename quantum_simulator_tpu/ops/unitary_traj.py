@@ -13,10 +13,10 @@ per-gate whole-state pass**: the spliced ops feed the group-matmul plan
 stacks the ideal forward uses (one einsum pass per composition window
 instead of one per gate+draw).
 
-Measured motivation (BENCH_r03 → r04): the per-gate fold executor
+Motivation: the per-gate fold executor
 (``ops/bigtraj.huge_trajectory_evolve``) is bandwidth-bound at one
-whole-state pass per gate — 82 traj/s at n=20 depth-8 batch-256; this
-path runs the plan's ~per-column passes instead.
+whole-state pass per gate; this path runs the plan's ~per-column passes
+instead.
 
 This replaces the reference's per-shot Python resampling loop
 (``/root/reference/quantum_sim/engine/simulator.py:134-145`` +

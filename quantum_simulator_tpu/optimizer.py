@@ -7,7 +7,7 @@ finite difference, Adam with bias correction, convergence on |Δcost| < tol,
 best-iterate selection, request_stop, barren-plateau variance analysis with
 layer/qubit grouping and 1e-4 threshold).
 
-TPU-native differences — this module is the largest win over the reference:
+Design differences — this module is the largest win over the reference:
 
 * **Autodiff**: circuits compile with their parameter vector as a runtime
   input, so ``jax.grad`` differentiates straight through the gate matrices.
@@ -207,7 +207,8 @@ def _pauli_string_device(psi, pauli_str: str, qubits: list[int], n: int):
             continue
         mat = jnp.asarray(_PAULI_NP[p], dtype=psi.dtype)
         opsi = apply_gate(opsi, mat, (int(q),), n)
-    # elementwise conj-sum: jnp.vdot lowers to a bf16 dot on TPU
+    # elementwise conj-sum: jnp.vdot would run at the default matmul
+    # precision (TF32 on the GPU)
     return jnp.real(jnp.sum(jnp.conj(psi) * opsi))
 
 
@@ -469,8 +470,8 @@ class GradientEstimator:
             state = sim.run(qc, shots=0, seed=seed).final_state
             out[i] = cost_fn(state)
             if huge:
-                # Two 8 GiB states cannot coexist on one chip: release
-                # this row's buffer before the next forward.
+                # Never hold two huge states at once: release this
+                # row's buffer before the next forward.
                 data = getattr(state, "state_data", None)
                 if data is not None:
                     data.delete()
@@ -510,7 +511,7 @@ class GradientEstimator:
         """(cost, grad) by reverse-mode differentiation through the
         compiled circuit — exact, one program, any gate."""
         # Backend-independent guard (unlike simulator._is_huge, which
-        # routes only on TPU): reverse-mode residuals at n >= 30 need
+        # routes only on the GPU): reverse-mode residuals at n >= 30 need
         # several whole >= 8 GiB states resident on ANY backend.
         if config.circuit.num_qubits >= 30:
             raise ValueError(

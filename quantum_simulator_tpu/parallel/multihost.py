@@ -1,14 +1,16 @@
 """Multi-host distributed seam: process-group init + host-spanning meshes.
 
-On a real multi-host TPU slice each Python process owns a subset of the
-chips; ``jax.distributed.initialize`` forms the process group over DCN and
-``jax.devices()`` then reports EVERY chip in the slice, so the same
-``shard_map`` programs in ``parallel/distributed.py`` run unchanged — XLA
-routes ppermute hops over ICI within a host and DCN across hosts.
+On a multi-host GPU cluster each Python process owns the cards of its
+host; ``jax.distributed.initialize`` (given ``coordinator_address``,
+``num_processes`` and ``process_id``) forms the process group over the
+network between hosts, and ``jax.devices()`` then reports EVERY card, so
+the same ``shard_map`` programs in ``parallel/distributed.py`` run
+unchanged — collectives ride NVLink between the cards of one host and
+the network between hosts.
 
-This rig has a single chip and no second host, so the data path here is
-covered by construction + unit tests of the mesh/topology logic only
-(documented unmeasurable in ROADMAP.md). The reference has no distributed
+Only single-host meshes have run on cards, so the cross-host data path
+here is covered by construction + unit tests of the mesh/topology logic
+only (ROADMAP.md). The reference has no distributed
 backend at all (SURVEY.md §5 "distributed communication backend" row).
 """
 
@@ -65,12 +67,14 @@ def initialize_multihost(spec: MultiHostSpec | None = None) -> MultiHostSpec:
 def amp_axis_split(n_devices: int, n_hosts: int,
                    devices_per_host: int | None = None
                    ) -> tuple[int, int]:
-    """Factor a 1-D amplitude mesh into (dcn, ici) axis sizes.
+    """Factor a 1-D amplitude mesh into (hosts, cards per host) axis
+    sizes.
 
     The amplitude index's MOST significant device bits should map to the
-    slowest links: put the host (DCN) factor first so qubit-swap
-    collectives for low-index qubits (rare in well-ordered circuits) ride
-    DCN while the frequent high-index swaps stay on ICI.
+    slowest links: put the host (network) factor first so qubit-swap
+    collectives for low-index qubits (rare in well-ordered circuits)
+    cross hosts while the frequent high-index swaps stay on NVLink
+    within a host.
     """
     if n_devices % n_hosts:
         raise ValueError(f"{n_devices} devices not divisible by "
@@ -87,7 +91,7 @@ def amp_axis_split(n_devices: int, n_hosts: int,
 def make_multihost_mesh(axis_name: str = "amp",
                         n_devices: int | None = None):
     """1-D amplitude mesh over every device in the process group, ordered
-    host-major so device-index bit k corresponds to DCN links iff
+    host-major so device-index bit k corresponds to cross-host links iff
     k < log2(num_hosts)."""
     import jax
     from jax.sharding import Mesh

@@ -7,7 +7,7 @@ maximum-likelihood parity syndrome extraction, run_cycle semantics, the
 three logical-error metrics of threshold_sweep, alternating |0>_L/|1>_L
 trials, AVAILABLE_CODES).
 
-TPU-native design — the whole QEC cycle is ONE compiled program:
+Design — the whole QEC cycle is ONE compiled program:
 
 * Pauli noise, X corrections and Z corrections reduce to index arithmetic:
   an X-mask is an XOR gather ``psi[i ^ mask]``, a Z-mask is a popcount sign
@@ -682,8 +682,9 @@ def build_cycle_fn(code: QECCode, noise_type: str):
     One compile serves a whole threshold sweep (p is a runtime scalar).
     Returns per-trial (fid_before, fid_after, z_exp, syndrome, xor, z).
     Inner products and parity reductions are elementwise-sum / HIGHEST
-    precision: the TPU default bf16 matmul error (~1e-1) would swamp the
-    ~1e-3 logical error rates the sweep measures.
+    precision: a reduced-precision default (TF32 on the GPU, ~1e-3
+    relative) would swamp the ~1e-3 logical error rates the sweep
+    measures.
     """
     n = code.total_qubits
     dim = 2**n

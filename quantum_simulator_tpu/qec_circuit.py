@@ -461,7 +461,7 @@ def _linear_sampler_fn(codes, qa, qb, pp, ref_outcomes, n: int,
     scan (one vmapped launch over 2S unit faults).  Sampling then needs
     no circuit walk at all — draw the per-site Pauli bits and apply ONE
     (T, 2S) x (2S, M) matmul mod 2 (``Precision.HIGHEST``: counts stay
-    < 2^24, exact in f32) — the MXU-shaped formulation of stim's frame
+    < 2^24, exact in f32) — the matmul-shaped formulation of stim's frame
     simulator.  Draw-identical to the scan engines under the same keys:
     per-trajectory uniforms are generated positionally over all L steps
     and sliced to the noise sites.  Signatures depend only on circuit
@@ -553,7 +553,7 @@ def _trajectory_fn(distance: int, n_rounds: int, noise_prob: float,
     error frame (O(1) per gate, a lax.scan circuit walk); ``"linear"``
     (default) exploits that frame propagation is GF(2)-LINEAR — unit
     fault signatures are probed once, then every trajectory batch is
-    ONE MXU matmul mod 2, no circuit walk at all."""
+    ONE matmul mod 2, no circuit walk at all."""
     key = (distance, n_rounds, float(noise_prob), basis, engine,
            two_qubit_depol, code)
     hit = _traj_cache.get(key)
@@ -635,7 +635,7 @@ def circuit_level_memory(distance: int, n_rounds: int, noise_prob: float,
     vs 0.0120 (3k/1.5k trials, same draws).
 
     ``engine`` picks the sampler (see ``_trajectory_fn``): ``"linear"``
-    (default, one MXU matmul per batch), ``"frame"``, or
+    (default, one matmul per batch), ``"frame"``, or
     ``"clifford"`` — all draw-identical in every decode-relevant
     statistic under the same seed.  ``two_qubit_depol`` switches to the
     literature's standard circuit noise: correlated 15-Pauli

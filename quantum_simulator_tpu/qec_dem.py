@@ -25,7 +25,7 @@ the only question the memory experiment asks.
 Reference anchor: the reference has no circuit-level noise anywhere
 (``/root/reference/quantum_sim/engine/qec.py`` decodes ideal one-cycle
 syndromes from Python dicts); this is the subsystem a real QEC stack
-runs, built TPU-style — enumeration as one batched device launch, the
+runs, built accelerator-style — enumeration as one batched device launch, the
 graph walk as the C union-find hot loop.
 """
 

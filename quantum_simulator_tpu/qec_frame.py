@@ -7,10 +7,10 @@ codewords + stochastic Pauli noise + parity-check syndromes + Pauli
 corrections) the entire cycle is determined by binary linear algebra on
 the error bits alone — the stabilizer-frame ("Pauli-frame") reduction
 used by large-scale QEC samplers.  This module implements that reduction
-TPU-natively: a trial is a row of X/Z error bits, a syndrome is a
+on the device: a trial is a row of X/Z error bits, a syndrome is a
 parity-check matmul, a decode is a lookup-table gather (or a cumsum for
 repetition codes), and a sweep over millions of trials is one batched
-VPU/MXU launch with no 2^n state anywhere.
+device launch with no 2^n state anywhere.
 
 Exactness contract (locked in by ``tests/test_qec_frame.py``): for the
 three reference codes, ``FrameQECSimulator.threshold_sweep`` consumes
@@ -318,8 +318,8 @@ def build_frame_sweep_fn(spec: FrameSpec, noise_type: str):
     whether the corrected state's logical readout sign is inverted.
     ``p`` is a runtime scalar — one compile serves a whole sweep, same
     as ``build_cycle_fn`` (``qec.py:473``).  All parity reductions run
-    at ``Precision.HIGHEST``: the TPU default bf16 matmul error would
-    corrupt parities for wide codes.
+    at ``Precision.HIGHEST``: a reduced-precision default matmul (TF32
+    on the GPU) would corrupt parities for wide codes.
     """
     dq = spec.data_qubits
     comp = jnp.asarray(spec.comp_checks, jnp.float32)

@@ -5,7 +5,7 @@ Parity target: ``/root/reference/quantum_sim/engine/reference.py:26-161``
 measurement distributions lazily computed and cached per basis;
 auto-invalidation on hash mismatch; |<psi|phi>|^2 fidelity).
 
-TPU-native differences: the reference state stays device-resident (its
+Design differences: the reference state stays device-resident (its
 density matrix is computed lazily — the reference eagerly materializes the
 2^n x 2^n rho on every store); basis rotations reuse the jitted
 all-qubit rotation program; fidelity is a device vdot.

@@ -4,7 +4,7 @@ Parity target: ``/root/reference/quantum_sim/engine/gate_registry.py:14-173``
 (21 built-in gates including Measure/Barrier, runtime-registrable custom
 gates, ``reset()`` for test isolation).
 
-TPU note: custom gates registered at runtime participate in circuit
+Note: custom gates registered at runtime participate in circuit
 compilation — their (static) matrices are baked into the traced program,
 and ``compile_circuit`` folds those matrix bytes into its compile key
 (``ops/program.py``), so re-registering a gate with a new matrix never

@@ -3,7 +3,7 @@
 Parity target: ``/root/reference/quantum_sim/engine/state_vector.py:8-193``
 (same property/method surface, same qubit-0-is-MSB convention). Differences:
 
-* amplitudes live on the accelerator as ``CONFIG.dtype`` (complex64 on TPU);
+* amplitudes live on the device as ``CONFIG.dtype`` (complex64 default);
   ``.data`` returns a NumPy complex128 copy for GUI/analysis consumers;
 * ``measure_qubit`` collapse is a vectorized masked projection (the
   reference loops over all 2^n amplitudes in Python);

@@ -4,7 +4,7 @@ Parity target: ``/root/reference/quantum_sim/core/experiment.py:209-275``
 (SeedManager with fork-safe child RNGs via ``rng.integers(0, 2**63)`` and
 ``reset()`` replaying the stream).
 
-TPU extension: ``create_child_key`` forks a JAX PRNG key from the same
+Extension: ``create_child_key`` forks a JAX PRNG key from the same
 master stream, so host-side NumPy sampling and device-side trajectory
 programs share one reproducible seed hierarchy.
 """

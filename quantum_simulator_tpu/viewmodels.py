@@ -666,14 +666,19 @@ class ResourceMonitorModel:
         return n - 1
 
     @classmethod
-    def comparison_table(cls, ram_bytes: int = 16 * 1024**3
+    def comparison_table(cls, ram_bytes: int | None = None
                          ) -> list[dict[str, object]]:
-        """Max-qubit comparison: this engine (complex64 statevector,
-        default 16 GiB = one TPU v5e chip's HBM) vs density-matrix sims."""
+        """Max-qubit comparison: this engine (complex64 statevector) vs
+        density-matrix sims, in ``ram_bytes`` (default: the device memory
+        budget, ``config.device_memory_budget``)."""
+        if ram_bytes is None:
+            from .config import device_memory_budget
+
+            ram_bytes = device_memory_budget()
         sv_max = cls.max_qubits_for_ram(ram_bytes, "sv")
         dm_max = cls.max_qubits_for_ram(ram_bytes, "dm")
         return [
-            {"simulator": "This (TPU statevector, sharded)",
+            {"simulator": "This (statevector, sharded)",
              "method": "State Vector", "max_qubits": sv_max,
              "memory_bytes": cls.statevector_bytes(sv_max),
              "note": "scales further with mesh sharding"},

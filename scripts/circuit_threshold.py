@@ -27,10 +27,6 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from quantum_simulator_tpu.utils.preflight import require_device_or_cpu
-
-require_device_or_cpu()
-
 from quantum_simulator_tpu.qec_circuit import circuit_level_memory  # noqa: E402
 
 

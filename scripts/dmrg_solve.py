@@ -21,10 +21,6 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from quantum_simulator_tpu.utils.preflight import require_device_or_cpu
-
-require_device_or_cpu()
-
 import numpy as np  # noqa: E402
 
 from quantum_simulator_tpu import mps  # noqa: E402

@@ -1,11 +1,11 @@
-"""On-chip monitored-trajectory acceptance (VERDICT r4 #2 "Done" tier).
+"""On-card monitored-trajectory acceptance.
 
-Drives ``Simulator.monitored_trajectories`` on the real TPU in the two
+Drives ``Simulator.monitored_trajectories`` on the GPU in the two
 regimes the reference cannot represent at all
 (``/root/reference/quantum_sim/engine/simulator.py:61-65`` skips
 MEASUREMENT during evolution; n caps at 16):
 
-1. **n=24 group path** (19 <= n <= 29: collapse as spliced projectors,
+1. **n=24 group path** (below the huge route: collapse as spliced projectors,
    ``ops/monomial_traj``): GHZ-24 with mid-circuit measurements on
    q0/q1 — outcomes must be equal in every trajectory and the final
    state must be the collapsed product state; then a noisy (depol)
@@ -14,9 +14,9 @@ MEASUREMENT during evolution; n caps at 16):
    GHZ-30, mid-circuit measures on q0/q1, ``final_shots`` Z samples —
    every sample must equal the recorded collapse branch exactly.
 
-Writes MONITORED_r05.json at the repo root.
+Prints one JSON line; ``--out PATH`` also writes the full record.
 
-Usage: python scripts/monitored_check.py [--skip-huge]
+Usage: python scripts/monitored_check.py [--skip-huge] [--out PATH]
 """
 
 from __future__ import annotations
@@ -70,18 +70,16 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip-huge", action="store_true")
     ap.add_argument("--trajectories", type=int, default=16)
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
-
-    from quantum_simulator_tpu.utils.preflight import require_device_or_cpu
-
-    require_device_or_cpu()
 
     import jax
 
     from quantum_simulator_tpu.noise import DepolarizingNoise, NoiseModel
     from quantum_simulator_tpu.simulator import Simulator
 
-    out: dict = {"platform": jax.devices()[0].platform}
+    out: dict = {"platform": jax.devices()[0].platform,
+                 "device_kind": jax.devices()[0].device_kind}
 
     # --- 1a. GHZ-24 correctness through the group monitored path ------
     n = 24
@@ -169,12 +167,11 @@ def main() -> int:
               f"warm (cold {cold:.1f} s), 256 samples/traj all equal to "
               f"the collapse branch", file=sys.stderr, flush=True)
 
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "MONITORED_r05.json")
-    with open(path, "w") as f:
-        json.dump(out, f, indent=1)
-    print(json.dumps({k: v for k, v in out.items() if k != "platform"}))
-    print(f"wrote {path}", file=sys.stderr)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+        print(f"wrote {args.out}", file=sys.stderr)
+    print(json.dumps(out))
     return 0
 
 

@@ -1,20 +1,21 @@
-"""Quantum-volume-at-scale artifact (VERDICT r4 #6).
+"""Quantum-volume-at-scale check.
 
 Runs the heavy-output quantum-volume protocol far beyond the
 reference's 8-qubit cap
 (``/root/reference/quantum_sim/engine/analysis.py:538-622`` loops
 ``Simulator.run`` once per trial per width): here every width's trials
-are vmapped lanes of ONE compiled program — on TPU the ideal forward
+are vmapped lanes of ONE compiled program — on the GPU the ideal forward
 is the group-matmul plan and the noisy lane the unitary-splice
 trajectory body (``analysis.BenchmarkAnalysis.quantum_volume_at_scale``).
 
-Writes QV_r05.json at the repo root: per-width heavy-output
-probabilities (mean, stderr, ideal control), the 2/3 threshold
-verdict per width, and the achieved QV = 2^m.
+Prints the achieved QV = 2^m as one JSON line; with ``--out PATH`` it
+also writes per-width heavy-output probabilities (mean, stderr, ideal
+control) and the 2/3 threshold verdict per width, after every width.
 
 Usage:
   python scripts/quantum_volume_check.py \
       [--widths 4,8,12,16,20] [--trials 50] [--noise-p 0.002] [--chunk 10]
+      [--out PATH]
 """
 
 from __future__ import annotations
@@ -43,10 +44,6 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
-    from quantum_simulator_tpu.utils.preflight import require_device_or_cpu
-
-    on_device = require_device_or_cpu()
-
     import jax
 
     from quantum_simulator_tpu.analysis import BenchmarkAnalysis
@@ -58,14 +55,13 @@ def main() -> int:
         nm = NoiseModel()
         nm.add_global_noise(DepolarizingNoise(args.noise_p))
 
-    out = args.out or os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "QV_r05.json")
+    out = args.out
 
     partial: list[dict] = []
 
     def _flush_width(row: dict) -> None:
-        # Persist after every width: remote compiles can take minutes
-        # per width and a timeout must not lose completed widths.
+        # Persist after every width: a timeout must not lose completed
+        # widths.
         partial.append(row)
         print(f"[qv] width {row['width']:>2}: heavy-output "
               f"{row['heavy_output_mean']:.4f} +- "
@@ -73,9 +69,10 @@ def main() -> int:
               f"(ideal {row['heavy_output_ideal_mean']:.4f}) "
               f"{'PASS' if row['passed'] else 'fail'} "
               f"[{row['seconds']:.1f} s]", file=sys.stderr, flush=True)
-        with open(out, "w") as f:
-            json.dump({"partial": True, "results_per_width": partial},
-                      f, indent=1)
+        if out:
+            with open(out, "w") as f:
+                json.dump({"partial": True, "results_per_width": partial},
+                          f, indent=1)
 
     t0 = time.perf_counter()
     res = BenchmarkAnalysis.quantum_volume_at_scale(
@@ -83,7 +80,7 @@ def main() -> int:
         seed=args.seed, chunk=args.chunk,
         trajectories_per_trial=args.trajectories, on_width=_flush_width)
     res["platform"] = jax.devices()[0].platform
-    res["on_device"] = bool(on_device)
+    res["device_kind"] = jax.devices()[0].device_kind
     res["noise"] = ({"channel": "depolarizing", "p": args.noise_p}
                     if nm else None)
     res["total_seconds"] = round(time.perf_counter() - t0, 1)
@@ -91,11 +88,12 @@ def main() -> int:
     print(f"[qv] quantum volume 2^{res['log2_qv']} = "
           f"{res['quantum_volume']}", file=sys.stderr)
 
-    with open(out, "w") as f:
-        json.dump(res, f, indent=1)
+    if out:
+        with open(out, "w") as f:
+            json.dump(res, f, indent=1)
+        print(f"wrote {out}", file=sys.stderr)
     print(json.dumps({"quantum_volume": res["quantum_volume"],
                       "log2_qv": res["log2_qv"]}))
-    print(f"wrote {out}", file=sys.stderr)
     return 0
 
 

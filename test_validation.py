@@ -4,7 +4,7 @@ Port of the reference's acceptance harness semantics
 (``/root/reference/test_validation.py``: Bell physics, norm preservation,
 measurement sanity, readout-mode consistency, QEC basics, reference
 invalidation, CPTP limits, performance bounds, scaling proofs) against the
-TPU-native engine. Run: ``python test_validation.py`` (add ``--cpu`` to
+accelerator-native engine. Run: ``python test_validation.py`` (add ``--cpu`` to
 force the CPU backend).
 """
 

@@ -1,14 +1,16 @@
 """Chunked in-place executor (ops/bigstate.py) vs the whole-state path.
 
-The chunked schedule exists for n >= 30 (where one whole-state einsum's
-in+out exceeds HBM); its math must be identical at every n, so it is
-validated here at small n — forced on with explicit chunk counts —
-against the whole-state group executor and the per-gate einsum program.
+The chunked schedule exists for states whose whole-state einsum (in+out)
+would not fit the device budget; its math must be identical at every n,
+so it is validated here at small n — forced on with explicit chunk
+counts — against the whole-state group executor and the per-gate einsum
+program.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from quantum_simulator_tpu.circuit import GateInstance, QuantumCircuit
 from quantum_simulator_tpu.models import brickwork_circuit
@@ -71,12 +73,16 @@ class TestChunkedExecutor:
         np.testing.assert_allclose(
             float(planar_norm_sq(x)), 1.0, atol=1e-5)
 
-    def test_auto_chunks_threshold(self):
-        assert auto_chunks(16) == 1
-        assert auto_chunks(28) == 1
-        assert auto_chunks(29) == 1
-        assert auto_chunks(30) == 8
-        assert auto_chunks(32) == 8
+    @pytest.mark.parametrize("budget_gib, planar, whole_up_to", [
+        (16, True, 29), (16, False, 30), (80, True, 31), (80, False, 32),
+    ])
+    def test_auto_chunks_threshold(self, budget_gib, planar, whole_up_to):
+        """Whole-state (1 chunk) while 2x the state fits 5/8 of the
+        budget, 8 chunks past it — 16 GiB and 80 GiB devices."""
+        budget = budget_gib << 30
+        for n in (16, 28, 29, 30, 31, 32):
+            want = 1 if n <= whole_up_to else 8
+            assert auto_chunks(n, planar=planar, budget=budget) == want, n
 
 
 class TestHugeSampling:
@@ -226,7 +232,7 @@ class TestHugeSampling:
 
     def test_simulator_huge_path(self):
         # Drive Simulator._run_huge directly at a small n (the public
-        # router gates on qubit count + TPU backend).
+        # router gates on state size + the GPU backend).
         from quantum_simulator_tpu.measurement import MeasurementBasis
         from quantum_simulator_tpu.ops.bigstate import PlanarStateVector
         from quantum_simulator_tpu.simulator import Simulator
@@ -399,3 +405,20 @@ class TestPauliStringExpectation:
             sv.expectation_pauli_string([0], "Q")
         with pytest.raises(ValueError):
             sv.expectation_pauli_string([77], "X")
+
+
+@pytest.mark.parametrize("n", [21, 25])
+def test_sampler_low_bits_unbiased(n):
+    """Every index bit of a uniform state is a fair coin: the in-tile
+    draw must resolve single amplitudes even where 2^-n is below the
+    f32 resolution of the whole CDF."""
+    from quantum_simulator_tpu.ops.bigstate import sample_state_indices
+    from quantum_simulator_tpu.ops.plan import GroupLayout
+
+    shape = GroupLayout.for_qubits(n).axis_sizes
+    x = jnp.full(shape, 2.0 ** (-n / 2), jnp.float32)
+    shots = 4096
+    idx = np.asarray(jax.jit(lambda x, k: sample_state_indices(
+        x, k, shots, planar=False))(x, jax.random.PRNGKey(1)))
+    bits = (idx[:, None] >> np.arange(n - 1, -1, -1)) & 1
+    assert np.abs(bits.mean(0) - 0.5).max() <= 5 * 0.5 / np.sqrt(shots)

@@ -221,7 +221,7 @@ def _fold_vs_group(circuit, nm, seed):
 
 class TestFoldTrajectoryBody:
     """The unchunked folded executor behind the vmapped mid-n
-    (19 <= n <= 26) batched-trajectory path."""
+    batched-trajectory path."""
 
     def test_real_brickwork(self):
         nm = NoiseModel()
@@ -384,7 +384,7 @@ class TestSimulatorHugeNoisy:
 
     def test_ensemble_qubit_rho_huge_path_matches(self):
         # Drive the gram-reduction path directly (the public router gates
-        # on qubit count + TPU backend) and compare with the batched path.
+        # on state size + the GPU backend) and compare with the batched path.
         from quantum_simulator_tpu.ops.bigtraj import huge_trajectory_gram_fn
 
         c = brickwork_circuit(9, 3, seed=7)

@@ -251,7 +251,7 @@ class TestViewModels:
         assert clifford_row["max_qubits"] > sv_row["max_qubits"]
         assert "Clifford" in str(clifford_row["note"])
         assert ResourceMonitorModel.max_qubits_for_ram(
-            16 * 1024**3, "sv") == 30  # complex64 on a 16 GiB chip
+            16 * 1024**3, "sv") == 30  # complex64 in 16 GiB
 
     def test_resource_monitor_proc_fallback(self):
         """Without psutil, sample() must still return real numbers from

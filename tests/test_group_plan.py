@@ -161,7 +161,7 @@ class TestGroupTrajectories:
 
 def test_group_evolve_body_matches_einsum_evolve():
     """The group-path evolve (provided initial state) must match the
-    per-gate evolve body — this is the TPU route of program.evolve_fn."""
+    per-gate evolve body — this is the GPU route of program.evolve_fn."""
     import jax
 
     from quantum_simulator_tpu.ops.apply import apply_gate

@@ -224,7 +224,7 @@ class TestRouting:
             unitary_insert_trajectory_body,
         )
 
-        # The group path is TPU-gated; force it so the interactive
+        # The group path is GPU-gated; force it so the interactive
         # batched loop executes under the CPU test mesh too.
         monkeypatch.setattr(prog, "_use_group_path", lambda _p: True)
         nm = NoiseModel()

@@ -404,7 +404,7 @@ class TestMonitoredGroupVsEinsumDirect:
     def test_group_monitored_fn_routing_guard(self):
         # Non-monomial noise at group widths must raise with guidance
         # (checked directly against the fn builder; _use_group_path is
-        # TPU-only so call the body instead).
+        # GPU-only so call the body instead).
         nm = NoiseModel()
         nm.add_global_noise(_XBasisDamping(0.2))
         p = prog.compile_circuit(brickwork(4, 1))
@@ -476,7 +476,7 @@ class TestHugeMonitored:
 
     def test_simulator_monitored_huge_helper(self):
         # _monitored_huge drives the loop + counts conversion (CPU:
-        # _is_huge is TPU-gated, so call the helper directly).
+        # _is_huge is GPU-gated, so call the helper directly).
         from quantum_simulator_tpu.simulator import Simulator
 
         n = 6
